@@ -169,7 +169,7 @@ def build_graph_from_reads(sequences, k: int, sample_name: str,
                            use_device: bool | None = None) -> gr.CortexGraph:
     """`mccortex build -k <k> -S` equivalent: reads -> sorted 1-color graph.
 
-    use_device selects the TPU counting path (ops/build_device.py — XLA
+    use_device selects the device counting path (ops/build_device.py — XLA
     sort + segment reduction, bit-identical output); None reads the
     CORTICALL_DEVICE_BUILD env var ("1" to enable).  Otherwise the C++
     native counting core (native.py) when available, falling back to the

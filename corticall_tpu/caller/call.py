@@ -103,8 +103,8 @@ class Caller:
 
         tesserae: "device" runs the mosaic-alignment DP on the accelerator
         (ops/tesserae_jax.TesseraeDevice — shape-bucketed, identical
-        segments), "host" keeps the numpy oracle, "auto" picks device when a
-        TPU backend is live (Tesserae is the Call hot path, SURVEY §3.2 /
+        segments), "host" keeps the numpy oracle, "auto" picks device when
+        device.gpu_available() (Tesserae is the Call hot path, SURVEY §3.2 /
         Call.java:2126-2263 + Tesserae.java:127-132)."""
         self.graph = graph
         self.rois_graph = rois_graph
@@ -126,15 +126,15 @@ class Caller:
         # batched contig-aligner accounting (label_targets): device-scored
         # candidate windows vs host tracebacks
         self.align_stats: dict = {}
+        # mosaic-alignment sections by where their DP ran (TesseraeDevice
+        # routes sections over its HBM budget to the host oracle)
+        self.tesserae_stats = {"device_sections": 0, "host_sections": 0}
 
     @staticmethod
     def _make_tesserae(mode: str, del_, eps, rho, term):
         if mode == "auto":
-            try:
-                import jax
-                mode = "device" if jax.default_backend() == "tpu" else "host"
-            except Exception:
-                mode = "host"
+            from ..device import gpu_available
+            mode = "device" if gpu_available() else "host"
         if mode == "device":
             from ..ops.tesserae_jax import TesseraeDevice
             return TesseraeDevice(del_, eps, rho, term)
@@ -1426,6 +1426,7 @@ class Caller:
         tmr = self.timer
         device_ma = type(self.ma).__name__ == "TesseraeDevice"
         ma_section = "device:tesserae" if device_ma else "host:tesserae"
+        n_sections = 0
 
         for rseq_index, (header, seq) in enumerate(rseqs):
             contig_name = header.split(" ")[0]
@@ -1455,6 +1456,7 @@ class Caller:
 
                     with tmr.section(ma_section):
                         lps = self.ma.align(tq_seq, labelled)
+                    n_sections += 1
                     with tmr.section("host:extract_variants"):
                         nrs = self.novelty_regions(rois, lps, True)
 
@@ -1497,8 +1499,11 @@ class Caller:
                 if not vcb.is_filtered():
                     svcs.add(vcb)
 
+        n_dev = self.ma.device_sections if device_ma else 0
+        self.tesserae_stats = {"device_sections": n_dev,
+                               "host_sections": n_sections - n_dev}
         # attribute the device mosaic-alignment phase: first call per shape
-        # bucket pays the remote AOT compile, the rest is dispatch+DP
+        # bucket pays the compile, the rest is dispatch+DP
         if device_ma and getattr(self.ma, "compile_s", 0):
             tmr.sections["device:tesserae_compile"] = self.ma.compile_s
             tmr.sections["device:tesserae_dispatch"] = self.ma.dispatch_s

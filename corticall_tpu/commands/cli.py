@@ -699,7 +699,7 @@ class _out_stream:
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="corticall_tpu",
-                                description="TPU-native Corticall")
+                                description="Accelerator-native Corticall")
     sub = p.add_subparsers(dest="command", required=True)
 
     def add(name, fn, **kwargs):

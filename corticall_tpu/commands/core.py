@@ -600,17 +600,11 @@ def link_kmer_flags(graph: gr.CortexGraph, links) -> np.ndarray:
 # LinkStore, no compile) for small seed batches; the device jump-table path
 # (link-free jump walks + exact linked replay of the walks that touch
 # link-carrying kmers) takes over when the batch is large enough to
-# amortize BOTH per-walk cost and the record-scaled table build.
-# Re-measured on round-5 code (LINKBENCH_r05.json, 4 Mbp graph + real
-# threaded links, build excluded): device wins at 4k/16k/64k seeds
-# (speedup 1.22/1.30/1.27), native at 1k (0.80), and the post-fix
-# exact-replay fraction is a stable ~26% of seeds (r4: ~47%).  With the
-# warm build INCLUDED (~2.2 s per 1M records on this rig) the crossover is
-# seed-count AND graph-size dependent — measured directly at flagship
-# scale (23.7M records, 5,257 seeds): device 345 s vs native 46 s, output
-# bit-identical — hence the records//256 term, which reproduces both the
-# 4 Mbp crossover (~16-32k seeds) and the flagship routing.  Tests set
-# the floor to -1 to force the device path.
+# amortize BOTH per-walk cost and the record-scaled table build.  The
+# crossover is seed-count AND graph-size dependent, hence the records//256
+# term.  Both constants were set on an earlier accelerator and are not yet
+# re-derived on the GPU.  Tests set the floor to -1 to force the device
+# path.
 _NATIVE_LINK_THRESHOLD = 2048
 
 
@@ -636,7 +630,8 @@ def _partition_links_device(graph: gr.CortexGraph, roi: gr.CortexGraph,
     LinkStore; host engine fallback).  Same filter the Call stage's
     chain-walk batching uses (caller/call._batched_chain_exts).  Below
     _NATIVE_LINK_THRESHOLD seeds the native walker runs everything — at
-    small batches its zero compile cost wins (LINKBENCH_r04.json)."""
+    small batches its zero compile cost wins (tools/bench_link_threshold.py
+    measures the crossover)."""
     from ..utils import checkpoint as ckpt
     from .. import native as nat
 

@@ -1,6 +1,6 @@
-"""Device-resident graph: struct-of-arrays tensors + hash table on the chip.
+"""Device-resident graph and the rule that picks device routes.
 
-The TPU counterpart of graph.CortexGraph: records live in HBM as packed
+The device counterpart of graph.CortexGraph: records live in HBM as packed
 uint32 kmer words, per-color coverage and edge bytes, plus an open-addressing
 slot table for O(1) random access (BASELINE.json north_star: "binary-search
 random access replaced by vectorized gather lookups").
@@ -11,10 +11,21 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+import jax
 import jax.numpy as jnp
 
 from . import graph as gr
 from .ops import hashtable as ht
+
+
+def gpu_available() -> bool:
+    """True when JAX's default backend is a GPU.
+
+    The one device-selection rule: routes left on "auto" (the Caller's
+    Tesserae DP, the contig aligner's banded-SW pre-score) run on the device
+    exactly when this holds, and keep their host oracles on the CPU.  A
+    route chosen here that then fails raises; nothing falls back."""
+    return jax.default_backend() == "gpu"
 
 
 @dataclass
@@ -86,49 +97,3 @@ class DeviceGraph:
             ct = ck.build_walk_table(np.asarray(self.kmers), edges)
             self._walk_tables[key] = jnp.asarray(ct.buckets)
         return self._walk_tables[key]
-
-
-_WARMED = {"thread": None}
-
-
-def warmup_async() -> None:
-    """Start compiling the production device kernels in a background thread.
-
-    The remote AOT pipeline charges ~2 minutes for the FIRST nontrivial
-    compile of a process (later programs compile in seconds — measured r4:
-    first Tesserae bucket 132 s, the next 1.6 s), so the pipeline kicks
-    this off at stage 0 and the wait overlaps the host-side build/thread
-    stages instead of serializing into the Call stage.  The thread only
-    waits on the remote compile service; repeated calls are no-ops."""
-    if _WARMED["thread"] is not None:
-        return
-
-    def work():
-        try:
-            import jax
-            if jax.default_backend() != "tpu":
-                return
-            import numpy as np
-            from .ops.tesserae_jax import TesseraeDevice
-            rng = np.random.default_rng(0)
-            bases = np.frombuffer(b"ACGT", dtype=np.uint8)
-            def seq(n):
-                return bases[rng.integers(0, 4, n)].tobytes().decode()
-            ma = TesseraeDevice(0.35, 0.90, 6e-4, 1e-3)
-            ma.align(seq(40), {"w:a": seq(40), "w:b": seq(40)})
-            # the contig-aligner's single fixed-shape banded-SW program
-            from .ops import sw_device as swd
-            from .models import contig_aligner as ca
-            import jax.numpy as jnp
-            qc = swd.codes_batch([seq(64)] * 2, ca.DEV_Q)
-            sc = swd.codes_batch([seq(64)] * 2, ca.DEV_S)
-            r = swd.sw_banded_pallas(jnp.asarray(qc), jnp.asarray(sc),
-                                     band=ca.DEV_BAND)
-            np.asarray(r[0])
-        except Exception:
-            pass  # warmup is best-effort; real calls compile on demand
-
-    import threading
-    t = threading.Thread(target=work, name="corticall-warmup", daemon=True)
-    t.start()
-    _WARMED["thread"] = t

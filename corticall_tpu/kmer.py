@@ -12,8 +12,8 @@ words : uint32[..., W]     W = ceil(k/16), 16 bases per 32-bit word, right-align
                            base i (0-based from the 5' end) sits at bit offset
                            2*(k-1-i) of the W*32-bit big-endian-ordered number
                            (words[..., 0] is most significant).  Numeric tuple
-                           order == lexicographic order.  uint32 lanes are the
-                           TPU-native integer width (VPU lanes are 32-bit);
+                           order == lexicographic order.  uint32 words keep
+                           device code in 32-bit integer lanes (no x64 mode);
                            the on-disk format's uint64 containers are converted
                            at the I/O boundary only.
 

@@ -171,7 +171,7 @@ def lookup_fused(entries: jnp.ndarray, queries: jnp.ndarray, max_probe: int,
     entries: uint32[M, W+1] (HashTable.build_entries); queries: uint32[B, W]
     canonical kmers -> int32[B] record indices (-1 miss).  Each round gathers
     `probes_per_round` consecutive slots at once, shortening the dependent-
-    gather chain that dominates probe latency on TPU.
+    gather chain that dominates probe latency.
     """
     m = entries.shape[0]
     w = queries.shape[1]

@@ -1,29 +1,16 @@
-"""Batched banded Smith-Waterman on device (jax scan + Pallas kernel).
+"""Batched banded Smith-Waterman on device (a jax scan over query rows).
 
 The bwa-mem-replacement extension stage at scale: B alignments advance in
-lockstep, one query row per step, the band held in vector lanes.  Affine
-horizontal gaps are computed in closed form per row — a max-plus prefix scan
-with constant extension (E[c] = max_{t<c} H[t] - open - (c-t)*ext) — which
-captures every gap run in a single pass, so no Farrar lazy-F loop is needed.
+lockstep, one query row per step, the band held as the minor array axis.
+Affine horizontal gaps are computed in closed form per row — a max-plus
+prefix scan with constant extension (E[c] = max_{t<c} H[t] - open -
+(c-t)*ext) — which captures every gap run in a single pass, so no Farrar
+lazy-F loop is needed.
 
-Two interchangeable implementations validated against the host Gotoh oracle:
-- `banded_sw_scores` — lax.scan over query rows (any backend; XLA keeps the
-  [B, W] carry on-chip).
-- `banded_sw_pallas` — the band-window layout as a Pallas kernel.  It does
-  NOT compile on real TPUs: Mosaic rejects dynamic indexing on the lane
-  dimension ("cannot statically prove that index in dimension 1 is a
-  multiple of 128") for both its sliding subject window
-  (`s_ref[:, pl.ds(i, w)]`) and its per-row query fetch (`q_ref[:, i]`).
-  Kept for interpret-mode parity tests only.
-- `sw_pallas` — the Mosaic-compiled production kernel.  Root-cause-shaped
-  layout: lanes = subject positions (static full row, no sliding window),
-  query pre-transposed to [Q, B] so the per-row fetch indexes the sublane
-  dimension (supported), the diagonal is a static one-lane shift, and the
-  horizontal-gap prefix scan is the log-step shift cummax.  Optionally
-  band-masked (identical cells to the scan twin) or full-matrix local SW.
-
-Both return the best local score and its (query, subject) end position;
-cigars for surviving candidates come from the host Gotoh on the banded window.
+`banded_sw_scores` is validated against the host Gotoh oracle
+(models/sw.py) and returns the best local score and its (query, subject)
+end position; cigars for surviving candidates come from the host Gotoh on
+the banded window.
 """
 
 from __future__ import annotations
@@ -50,23 +37,10 @@ def _pad_subject(s_codes, qmax: int, band: int):
     return out
 
 
-def _cummax_shift(x):
-    """Inclusive max-scan along lanes via log-step shifts (Hillis-Steele) —
-    Pallas TPU has no cummax lowering, and this is also how a warp scan
-    would be scheduled on the VPU anyway."""
-    b, w = x.shape
-    s = 1
-    while s < w:
-        shifted = jnp.concatenate(
-            [jnp.full((b, s), NEG, x.dtype), x[:, :-s]], axis=1)
-        x = jnp.maximum(x, shifted)
-        s *= 2
-    return x
-
-
-def _row_update(h_prev, f_prev, qc_i, s_win, jj, smax, cc, cummax=jax.lax.cummax):
-    """Shared row recurrence.  h_prev/f_prev/s_win: [B, W]; jj: subject
-    columns of this row's band cells; cc: float iota [B?, W] or [W]."""
+def _row_update(h_prev, f_prev, qc_i, s_win, jj, smax, cc):
+    """One query row of the banded recurrence.  h_prev/f_prev/s_win:
+    [B, W]; jj: subject columns of this row's band cells; cc: float iota
+    [1, W]."""
     b, w = h_prev.shape
     valid = (jj >= 0) & (jj < smax)
     # the virtual zero column (jj == -1) must read 0, not NEG: it is the
@@ -85,7 +59,7 @@ def _row_update(h_prev, f_prev, qc_i, s_win, jj, smax, cc, cummax=jax.lax.cummax
 
     # E[c] = max_{t<c}(h[t] - open - (c-t)*ext) = max_t(h[t] + ext*t) - ext*c - open
     adj = jnp.where(valid, h, NEG) + GAP_EXTEND * cc
-    run = cummax(adj, axis=1) if cummax is jax.lax.cummax else cummax(adj)
+    run = jax.lax.cummax(adj, axis=1)
     run_prev = jnp.concatenate([neg_col, run[:, :-1]], axis=1)
     e = run_prev - GAP_EXTEND * cc - GAP_OPEN
     h = jnp.where(valid, jnp.maximum(jnp.maximum(h, e), 0.0), fill)
@@ -128,379 +102,6 @@ def banded_sw_scores(q_codes, s_codes, band: int = 128):
             jnp.zeros(bsz, jnp.int32))
     (_, _, best, bq, bs), _ = jax.lax.scan(step, init, jnp.arange(qmax))
     return best, bq, bs
-
-
-def banded_sw_pallas(q_codes, s_codes, band: int = 128, tile: int = 128,
-                     interpret: bool | None = None):
-    """Pallas TPU twin of banded_sw_scores."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-
-    bsz, qmax = q_codes.shape
-    smax = int(s_codes.shape[1])
-    w = band
-    half = band // 2
-    pad_b = (-bsz) % tile
-    if pad_b:
-        q_codes = jnp.concatenate(
-            [q_codes, jnp.full((pad_b, qmax), 4, q_codes.dtype)])
-        s_codes = jnp.concatenate(
-            [s_codes, jnp.full((pad_b, s_codes.shape[1]), 4, s_codes.dtype)])
-    n = q_codes.shape[0]
-    s_pad = np.asarray(_pad_subject(jnp.asarray(s_codes), qmax, band))
-    wpad = s_pad.shape[1]
-
-    def kernel(q_ref, s_ref, score_ref, qe_ref, se_ref, h_ref, f_ref):
-        lane = jax.lax.broadcasted_iota(jnp.int32, (tile, w), 1)
-        cc = lane.astype(jnp.float32)
-        h_ref[:] = jnp.where(lane - half >= 0, 0.0, NEG)
-        f_ref[:] = jnp.full((tile, w), NEG)
-
-        def row(i, state):
-            best, bq, bs = state
-            qc_i = q_ref[:, jnp.minimum(i, qmax - 1)]
-            qc_i = jnp.where(i < qmax, qc_i, 4)
-            s_win = s_ref[:, pl.ds(i, w)]
-            jj = i - half + lane
-            h, f = _row_update(h_ref[:], f_ref[:], qc_i, s_win, jj, smax, cc,
-                               cummax=_cummax_shift)
-            h_ref[:] = h
-            f_ref[:] = f
-            row_best = jnp.max(h, axis=1)
-            row_arg = jnp.argmax(h, axis=1).astype(jnp.int32)
-            improved = row_best > best
-            best = jnp.where(improved, row_best, best)
-            bq = jnp.where(improved, i + 1, bq)
-            bs = jnp.where(improved, i - half + row_arg + 1, bs)
-            return best, bq, bs
-
-        best, bq, bs = jax.lax.fori_loop(
-            0, qmax, row,
-            (jnp.zeros(tile), jnp.zeros(tile, jnp.int32),
-             jnp.zeros(tile, jnp.int32)))
-        score_ref[:] = best
-        qe_ref[:] = bq
-        se_ref[:] = bs
-
-    score, qe, se = pl.pallas_call(
-        kernel,
-        grid=(n // tile,),
-        in_specs=[
-            pl.BlockSpec((tile, qmax), lambda i: (i, 0)),
-            pl.BlockSpec((tile, wpad), lambda i: (i, 0)),
-        ],
-        out_specs=(
-            pl.BlockSpec((tile,), lambda i: (i,)),
-            pl.BlockSpec((tile,), lambda i: (i,)),
-            pl.BlockSpec((tile,), lambda i: (i,)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((n,), jnp.float32),
-            jax.ShapeDtypeStruct((n,), jnp.int32),
-            jax.ShapeDtypeStruct((n,), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((tile, w), jnp.float32),
-            pltpu.VMEM((tile, w), jnp.float32),
-        ],
-        interpret=interpret,
-    )(jnp.asarray(q_codes), jnp.asarray(s_pad))
-    return score[:bsz], qe[:bsz], se[:bsz]
-
-
-def _cummax_sublane(x):
-    """Inclusive max-scan along sublanes (axis 0) via log-step shifts."""
-    w, b = x.shape
-    s = 1
-    while s < w:
-        shifted = jnp.concatenate(
-            [jnp.full((s, b), NEG, x.dtype), x[:-s, :]], axis=0)
-        x = jnp.maximum(x, shifted)
-        s *= 2
-    return x
-
-
-def sw_pallas(q_codes, s_codes, band: int | None = None, tile: int = 128,
-              interpret: bool | None = None):
-    """Mosaic-compiled local SW: full-matrix (optionally band-masked).
-    Jit-cached like sw_banded_pallas (re-tracing per call costs ~520 ms)."""
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _sw_pallas_jit(q_codes, s_codes, band, tile, interpret)
-
-
-@partial(jax.jit, static_argnames=("band", "tile", "interpret"))
-def _sw_pallas_jit(q_codes, s_codes, band: int | None, tile: int,
-                   interpret: bool):
-    """Body of sw_pallas.
-
-    q_codes int32[B, QMAX], s_codes int32[B, SMAX] (4 = pad/N).  With band=N
-    the scored cells match banded_sw_scores(band=N) exactly; band=None scores
-    the full matrix.  Returns (score f32[B], q_end i32[B], s_end i32[B]),
-    ends 1-based inclusive.
-
-    Layout (shaped by two Mosaic limits the round-1 kernel hit): batch rides
-    the LANE dimension, subject positions ride SUBLANES.  Dynamic indexing is
-    only ever on the leading (sublane) dim of the transposed query — Mosaic
-    rejects dynamic lane indexing ("cannot statically prove that index in
-    dimension 1 is a multiple of 128") — and the fetched per-row query chars
-    broadcast across sublanes, the one relayout direction Mosaic supports
-    (lane-vector -> sublane-replicated).  Diagonals and the horizontal-gap
-    prefix scan are static one-sublane shifts.
-    """
-    from jax.experimental import pallas as pl
-
-    if tile % 128:
-        raise ValueError("tile must be a multiple of 128 (batch rides lanes)")
-
-    bsz, qmax = q_codes.shape
-    smax = int(s_codes.shape[1])
-    w = ((smax + 7) // 8) * 8                        # sublane multiple
-    half = (band // 2) if band is not None else 0
-    pad_b = (-bsz) % tile
-    if pad_b:
-        q_codes = jnp.concatenate(
-            [q_codes, jnp.full((pad_b, qmax), 4, q_codes.dtype)])
-        s_codes = jnp.concatenate(
-            [s_codes, jnp.full((pad_b, smax), 4, s_codes.dtype)])
-    n = q_codes.shape[0]
-    qt = jnp.asarray(q_codes).T                      # [QMAX, n]
-    st = jnp.concatenate(
-        [jnp.asarray(s_codes),
-         jnp.full((n, w - smax), 4, s_codes.dtype)], axis=1).T   # [W, n]
-
-    def kernel(qt_ref, s_ref, score_ref, qe_ref, se_ref):
-        sub_pos = jax.lax.broadcasted_iota(jnp.int32, (w, tile), 0)
-        cc = sub_pos.astype(jnp.float32)
-        s_col = s_ref[:]                             # [W, tile]
-        valid_s = sub_pos < smax
-
-        def row(i, state):
-            h_prev, f_prev, best, bq, bs = state
-            qc = qt_ref[i, :][None, :]               # [1, tile] -> sublane bcast
-            if band is None:
-                valid = valid_s
-            else:
-                valid = valid_s & (sub_pos >= i - half) & (sub_pos < i + half)
-            match = (qc == s_col) & (qc < 4)
-            sub = jnp.where(match, MATCH, MISMATCH)
-            neg_row = jnp.full((1, tile), NEG)
-            zero_row = jnp.zeros((1, tile))
-            diag = jnp.concatenate([zero_row, h_prev[:-1, :]], axis=0)
-            f = jnp.maximum(f_prev - GAP_EXTEND, h_prev - GAP_OPEN - GAP_EXTEND)
-            h = jnp.maximum(jnp.maximum(diag + sub, f), 0.0)
-            h = jnp.where(valid, h, NEG)
-            adj = h + GAP_EXTEND * cc
-            run = _cummax_sublane(adj)
-            e = (jnp.concatenate([neg_row, run[:-1, :]], axis=0)
-                 - GAP_EXTEND * cc - GAP_OPEN)
-            h = jnp.where(valid, jnp.maximum(jnp.maximum(h, e), 0.0), NEG)
-
-            # keep reductions 2-D ([1, tile]) — 1-D lane vectors trigger
-            # unsupported Mosaic relayouts when re-broadcast
-            row_best = jnp.max(h, axis=0, keepdims=True)
-            # first-match argmax (ties break like jnp.argmax in the twin)
-            row_arg = jnp.min(
-                jnp.where(h == row_best, sub_pos, w), axis=0, keepdims=True)
-            improved = row_best > best
-            best = jnp.where(improved, row_best, best)
-            bq = jnp.where(improved, i + 1, bq)
-            bs = jnp.where(improved, row_arg + 1, bs)
-            return h, f, best, bq, bs
-
-        # data-dependent inits: splat-constant carries get lane-replicated
-        # Mosaic layouts that the loop back-edge cannot relayout to the body
-        # outputs' natural layouts
-        zf = s_col.astype(jnp.float32) * 0.0
-        h0 = jnp.where(valid_s, zf, NEG)
-        f0 = zf + NEG
-        z1 = jnp.max(zf, axis=0, keepdims=True)
-        _, _, best, bq, bs = jax.lax.fori_loop(
-            0, qmax, row,
-            (h0, f0, z1, z1.astype(jnp.int32), z1.astype(jnp.int32)))
-        score_ref[:] = best
-        qe_ref[:] = bq
-        se_ref[:] = bs
-
-    score, qe, se = pl.pallas_call(
-        kernel,
-        grid=(n // tile,),
-        in_specs=[
-            pl.BlockSpec((qmax, tile), lambda i: (0, i)),
-            pl.BlockSpec((w, tile), lambda i: (0, i)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ),
-        interpret=interpret,
-    )(qt, st)
-    return score[0, :bsz], qe[0, :bsz], se[0, :bsz]
-
-
-def sw_banded_pallas(q_codes, s_codes, band: int = 128, tile: int = 128,
-                     interpret: bool | None = None):
-    """Mosaic-compiled banded local SW — the production TPU kernel.
-
-    Jit-cached: re-invoking at the same shapes costs one dispatch, not a
-    re-trace.  Re-tracing pallas_call per call was the entire difference
-    between 0.08 and >20 GCUPS on this kernel — the un-jitted wrapper spent
-    ~520 ms of host time rebuilding Mosaic IR per invocation while the device
-    sat idle.
-    """
-    if interpret is None:
-        interpret = jax.default_backend() != "tpu"
-    return _sw_banded_pallas_jit(q_codes, s_codes, band, tile, interpret)
-
-
-@partial(jax.jit, static_argnames=("band", "tile", "interpret"))
-def _sw_banded_pallas_jit(q_codes, s_codes, band: int, tile: int,
-                          interpret: bool):
-    """Body of sw_banded_pallas (see its docstring).
-
-    Cell-for-cell identical to banded_sw_scores(band=band) but laid out for
-    the hardware instead of for XLA's scan:
-
-    - batch rides LANES (tile = 128 alignments per grid step), band positions
-      ride SUBLANES (band/8 vregs of f32 state instead of the full-matrix
-      kernel's 128 vregs) — every shift the recurrence needs (diagonal feed,
-      vertical-gap feed, horizontal-gap prefix scan) is a static sublane
-      shift, which Mosaic lowers natively; nothing ever indexes lanes
-      dynamically (the constraint that sank the round-1 kernel).
-    - the sliding subject window lives in VMEM scratch in band coordinates
-      and advances one sublane per query row: roll up + insert the one new
-      char, fetched from the transposed padded subject (dynamic *sublane*
-      indexing — supported).
-    - best-cell tracking is deferred: the row loop keeps only per-cell
-      running (best value, first row achieving it); the argmax reduction over
-      the band happens once after the loop, not every row.  Tie-breaking
-      reproduces the scan twin exactly (earliest row, then lowest band cell).
-    """
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    if band % 8:
-        raise ValueError("band must be a multiple of 8 (band rides sublanes)")
-    if tile % 128:
-        raise ValueError("tile must be a multiple of 128 (batch rides lanes)")
-
-    bsz, qmax = q_codes.shape
-    smax = int(s_codes.shape[1])
-    w = band
-    half = band // 2
-    pad_b = (-bsz) % tile
-    if pad_b:
-        q_codes = jnp.concatenate(
-            [q_codes, jnp.full((pad_b, qmax), 4, q_codes.dtype)])
-        s_codes = jnp.concatenate(
-            [s_codes, jnp.full((pad_b, smax), 4, s_codes.dtype)])
-    n = q_codes.shape[0]
-    qt = jnp.asarray(q_codes).T.astype(jnp.int32)       # [QMAX, n]
-    # transposed band-padded subject: row x holds s[x - half] (pad 4)
-    st = jnp.full((qmax + band, n), 4, jnp.int32)
-    st = jax.lax.dynamic_update_slice(
-        st, jnp.asarray(s_codes).T.astype(jnp.int32)[:min(smax, qmax + half)],
-        (half, 0))
-
-    def kernel(qt_ref, s_ref, score_ref, qe_ref, se_ref,
-               h_ref, f_ref, sb_ref, bh_ref, br_ref):
-        cc = jax.lax.broadcasted_iota(jnp.int32, (w, tile), 0)
-        ccf = cc.astype(jnp.float32)
-        # row 0 state: jj = -half + c
-        jj0 = cc - half
-        h_ref[:] = jnp.where(jj0 >= 0, 0.0, NEG)
-        f_ref[:] = jnp.full((w, tile), NEG)
-        sb_ref[:] = s_ref[0:w, :]
-        bh_ref[:] = jnp.zeros((w, tile))
-        br_ref[:] = jnp.zeros((w, tile), jnp.int32)
-
-        def row(i, _):
-            h_prev, f_prev, s_win = h_ref[:], f_ref[:], sb_ref[:]
-            jj = (i - half) + cc
-            valid = (jj >= 0) & (jj < smax)
-            fill = jnp.where(jj == -1, 0.0, NEG)
-            qc = qt_ref[i, :][None, :]                   # [1, tile] bcast
-            sub = jnp.where((qc == s_win) & (qc < 4), MATCH, MISMATCH)
-
-            neg_row = jnp.full((1, tile), NEG)
-            # band coords shift with the row: H/F(i-1, j) sit one sublane up
-            up_h = jnp.concatenate([h_prev[1:, :], neg_row], axis=0)
-            up_f = jnp.concatenate([f_prev[1:, :], neg_row], axis=0)
-            f = jnp.maximum(up_f - GAP_EXTEND, up_h - GAP_OPEN - GAP_EXTEND)
-            h = jnp.maximum(jnp.maximum(h_prev + sub, f), 0.0)
-            h = jnp.where(valid, h, fill)
-
-            # E[c] = max_{t<c}(h[t] + ext*t) - ext*c - open (sublane cummax)
-            adj = jnp.where(valid, h, NEG) + GAP_EXTEND * ccf
-            run = _cummax_sublane(adj)
-            e = (jnp.concatenate([neg_row, run[:-1, :]], axis=0)
-                 - GAP_EXTEND * ccf - GAP_OPEN)
-            h = jnp.where(valid, jnp.maximum(jnp.maximum(h, e), 0.0), fill)
-
-            h_ref[:] = h
-            f_ref[:] = f
-            # deferred best: strict > keeps the EARLIEST row per cell
-            improved = h > bh_ref[:]
-            bh_ref[:] = jnp.where(improved, h, bh_ref[:])
-            br_ref[:] = jnp.where(improved, i, br_ref[:])
-            # slide the subject band: next row's cell c reads s_pad[i+1+c]
-            sb_ref[:] = jnp.concatenate(
-                [s_win[1:, :], s_ref[pl.ds(i + w, 1), :]], axis=0)
-            return 0
-
-        jax.lax.fori_loop(0, qmax, row, 0)
-
-        # final argmax over the band, twin tie-breaking: max value, then
-        # earliest row, then lowest band cell
-        bh, br = bh_ref[:], br_ref[:]
-        big = jnp.int32(1 << 30)
-        best = jnp.max(bh, axis=0, keepdims=True)        # [1, tile]
-        at_best = bh == best
-        row_star = jnp.min(jnp.where(at_best, br, big), axis=0, keepdims=True)
-        c_star = jnp.min(
-            jnp.where(at_best & (br == row_star), cc, big),
-            axis=0, keepdims=True)
-        found = best > 0.0
-        score_ref[:] = jnp.where(found, best, 0.0)
-        qe_ref[:] = jnp.where(found, row_star + 1, 0)
-        se_ref[:] = jnp.where(found, row_star - half + c_star + 1, 0)
-
-    score, qe, se = pl.pallas_call(
-        kernel,
-        grid=(n // tile,),
-        in_specs=[
-            pl.BlockSpec((qmax, tile), lambda i: (0, i)),
-            pl.BlockSpec((qmax + band, tile), lambda i: (0, i)),
-        ],
-        out_specs=(
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-            pl.BlockSpec((1, tile), lambda i: (0, i)),
-        ),
-        out_shape=(
-            jax.ShapeDtypeStruct((1, n), jnp.float32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-            jax.ShapeDtypeStruct((1, n), jnp.int32),
-        ),
-        scratch_shapes=[
-            pltpu.VMEM((w, tile), jnp.float32),   # h
-            pltpu.VMEM((w, tile), jnp.float32),   # f
-            pltpu.VMEM((w, tile), jnp.int32),     # subject band window
-            pltpu.VMEM((w, tile), jnp.float32),   # per-cell best value
-            pltpu.VMEM((w, tile), jnp.int32),     # per-cell first best row
-        ],
-        interpret=interpret,
-    )(qt, st)
-    return score[0, :bsz], qe[0, :bsz], se[0, :bsz]
 
 
 def codes_batch(strings, width: int) -> np.ndarray:

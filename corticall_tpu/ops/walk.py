@@ -1,6 +1,6 @@
 """Batched frontier walk kernel: thousands of contig walks per device step.
 
-The TPU-native reformulation of the reference's one-vertex-at-a-time cursor
+The batched device reformulation of the reference's one-vertex-at-a-time cursor
 (TraversalEngine.java:241-319, ContigStopper semantics): every walk advances
 one de Bruijn step per fused device iteration — canonicalize, hash-probe,
 edge-byte decode, single-successor test, shift-append — entirely in uint32

@@ -329,7 +329,7 @@ def jump_extensions_batch(seeds: list, packed: np.ndarray, steps: np.ndarray,
     # decode in bounded lane blocks: the [B, 2T, 16] expansion at the
     # production chunk (65536 lanes x max_walk 20000) would be a ~1.3 GB
     # uint8 transient (with a >5 GB uint32 intermediate) — blocks keep the
-    # peak under ~100 MB with identical output (ADVICE r04)
+    # peak under ~100 MB with identical output
     block = max(1, (16 << 20) // max(w.shape[1] * 16, 1))
     for lo in range(0, len(seeds), block):
         wb = w[lo:lo + block]
@@ -398,7 +398,7 @@ def replay_walk(seed: str, bases: np.ndarray, cycled: bool,
     if not cycled:
         # cap-saturated recordings may hide an undetected revisit (kernel
         # Brent's power-of-two windows can miss a cycle of length L until
-        # ~2^ceil(log2 L)+L steps; ADVICE r03 / jump-cycle audit) — but the
+        # ~2^ceil(log2 L)+L steps) — but the
         # expensive per-kmer seen-set replay only matters when a revisit
         # actually exists, so a vectorized hash-uniqueness check gates it
         # (every chunk-capped walk paying the dict replay cost the r4

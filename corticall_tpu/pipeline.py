@@ -124,12 +124,6 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
     timings and stats (see keys below).
     """
     pl = Pipeline(workdir, resume=resume, log=log)
-    # start the remote AOT compile pipeline warming now: the first
-    # nontrivial compile of a process costs ~2 min on this rig; overlapping
-    # it with the host build/thread stages keeps it off the Call stage's
-    # critical path (device.warmup_async)
-    from . import device as dv
-    dv.warmup_async()
     samples = [child] + list(parents)
     link_samples = list(link_samples if link_samples is not None else samples)
     prefilters = list(prefilters if prefilters is not None
@@ -274,7 +268,8 @@ def run_pipeline(workdir: str, reads_by_sample: dict, child: str,
         if breakdown:
             pl.log(f"[pipeline] call breakdown: {breakdown}")
         return variants, {"calls": len(variants), "call_breakdown": breakdown,
-                          "contig_aligner": dict(caller.align_stats)}
+                          "contig_aligner": dict(caller.align_stats),
+                          "tesserae": dict(caller.tesserae_stats)}
     variants = pl.stage(
         "call", ["calls.vcf", "accounting.txt"], compute_call,
         lambda vp, ap: _load_vcf_variants(vp))

@@ -6,7 +6,7 @@ the reference runs it as a Cromwell WDL (Simulate.wdl:620-1430: per-sample
 mccortex build/clean, read threading into links, Join, FindROIs, the
 prefilter chain, Partition, Call; the Call task is provisioned 8 GiB /
 2 cores per sample on GCP).  This demo runs that exact stage order end to
-end on one host + one TPU chip via pipeline.run_pipeline:
+end on one host + one accelerator via pipeline.run_pipeline:
 
   simulate cross (recombinant child + injected DNMs)
   -> shotgun reads with errors per trio sample

@@ -175,7 +175,7 @@ def test_call_multiple_variants_one_chromosome():
 
 
 def test_device_tesserae_identical_vcf():
-    """Caller(tesserae="device") — the TPU mosaic-alignment path
+    """Caller(tesserae="device") — the device mosaic-alignment path
     (ops/tesserae_jax, shape-bucketed) — must emit exactly the same variants
     as the host oracle on a multi-variant scenario."""
     rng = np.random.default_rng(29)

@@ -1,6 +1,7 @@
 """Cuckoo (bucketized two-choice) walk table vs the linear-probe table."""
 
 import numpy as np
+import pytest
 import jax.numpy as jnp
 
 from corticall_tpu import fixtures, kmer as km
@@ -337,7 +338,7 @@ def test_jump_table_cycles():
     cycle lengths that are and are not multiples of JUMP_MAX, plus a cycle
     whose jump period exceeds the cap — that lane must be flagged
     `saturated` and its replayed contig must still be the exact seen-set
-    answer (ADVICE r03: jump-stride Brent misses cycles with period
+    answer (jump-stride Brent misses cycles with period
     L/gcd(L, JUMP_MAX) > cap/JUMP_MAX jumps)."""
     from corticall_tpu.ops import walk_np as wnp
     k = 31
@@ -370,3 +371,24 @@ def test_jump_table_cycles():
                 # every lane is on a cycle: it must be either detected
                 # (cycled) or flagged potentially-cyclic (saturated)
                 assert bool(jcy[i]) or bool(jsat[i]), (name, cap, s)
+
+
+def _gather_rows_tiled(flat, idx, size):
+    """Reference: the 128-word-tile gather with a one-hot row select."""
+    per = 128 // size
+    t = flat.reshape(-1, 128)[idx // per].reshape(-1, per, size)
+    onehot = (jnp.arange(per)[None, :] == (idx % per)[:, None])
+    return (t * onehot[:, :, None].astype(t.dtype)).sum(axis=1)
+
+
+@pytest.mark.parametrize("size", [4, 8])
+def test_gather_rows_matches_tiled_select(size):
+    rng = np.random.default_rng(size)
+    flat = rng.integers(0, 2**32, 128 * 64, dtype=np.uint32)
+    idx = rng.integers(0, len(flat) // size, 1000).astype(np.int32)
+    got = np.asarray(ck._gather_rows(jnp.asarray(flat), jnp.asarray(idx),
+                                     size))
+    np.testing.assert_array_equal(got, flat.reshape(-1, size)[idx])
+    np.testing.assert_array_equal(
+        got, np.asarray(_gather_rows_tiled(jnp.asarray(flat),
+                                           jnp.asarray(idx), size)))

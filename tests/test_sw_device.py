@@ -49,20 +49,6 @@ def test_banded_scan_matches_gotoh():
     np.testing.assert_allclose(np.asarray(score), want, rtol=0, atol=1e-4)
 
 
-def test_banded_pallas_matches_scan():
-    rng = np.random.default_rng(102)
-    qs, ss = _cases(rng, 13)  # odd batch exercises tile padding
-    qmax = max(len(q) for q in qs)
-    smax = max(len(s) for s in ss)
-    qc = swd.codes_batch(qs, qmax)
-    sc = swd.codes_batch(ss, smax)
-    s1, q1, e1 = swd.banded_sw_scores(qc, sc, band=128)
-    s2, q2, e2 = swd.banded_sw_pallas(qc, sc, band=128)
-    np.testing.assert_allclose(np.asarray(s2), np.asarray(s1), atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(q2), np.asarray(q1))
-    np.testing.assert_array_equal(np.asarray(e2), np.asarray(e1))
-
-
 def test_banded_end_positions():
     # perfect match: ends at (len(q), shift + len(q))
     rng = np.random.default_rng(103)
@@ -87,46 +73,35 @@ def test_zero_column_paths_not_lost():
     sc = swd.codes_batch([s], len(s))
     score, qe, se = swd.banded_sw_scores(qc, sc, band=128)
     assert float(score[0]) == 40 * 5.0
-    score2, _, _ = swd.sw_pallas(qc, sc, band=128)
-    assert float(score2[0]) == 40 * 5.0
 
 
-def test_sw_pallas_full_matches_gotoh():
-    rng = np.random.default_rng(105)
-    qs, ss = _cases(rng, 24)
+@pytest.mark.parametrize("band,n_cases", [(64, 24), (128, 13), (512, 24),
+                                          (512, 7)])
+def test_banded_scan_matches_gotoh_ends(band, n_cases):
+    # scores AND end positions equal the full-matrix Gotoh's (both break
+    # ties by earliest row, then lowest column); odd batches included
+    rng = np.random.default_rng(200 + band + n_cases)
+    qs, ss = _cases(rng, n_cases)
     qc = swd.codes_batch(qs, max(len(q) for q in qs))
     sc = swd.codes_batch(ss, max(len(s) for s in ss))
-    score, qe, se = swd.sw_pallas(qc, sc, band=None)
-    np.testing.assert_allclose(np.asarray(score), _oracle_scores(qs, ss),
-                               rtol=0, atol=1e-4)
+    score, qe, se = swd.banded_sw_scores(qc, sc, band=band)
+    sw = SmithWaterman()
+    want = [sw.align_detailed(q, s) for q, s in zip(qs, ss)]
+    np.testing.assert_array_equal(np.asarray(score),
+                                  [w["score"] for w in want])
+    np.testing.assert_array_equal(np.asarray(qe), [w["qend"] for w in want])
+    np.testing.assert_array_equal(np.asarray(se), [w["send"] for w in want])
 
 
-def test_sw_banded_pallas_matches_scan():
-    # the production banded kernel (band on sublanes, batch on lanes,
-    # deferred argmax): scores AND end positions must match the scan twin,
-    # including its tie-breaking (earliest row, then lowest band cell)
-    rng = np.random.default_rng(107)
-    qn = rng.integers(0, 4, (64, 96)).astype(np.int32)
-    sn = rng.integers(0, 4, (64, 120)).astype(np.int32)
-    for i in range(0, 64, 2):
-        sn[i, :96] = qn[i]
-    for band in (64, 128):
-        s1, q1, e1 = swd.banded_sw_scores(qn, sn, band=band)
-        s2, q2, e2 = swd.sw_banded_pallas(qn, sn, band=band)
-        np.testing.assert_allclose(np.asarray(s2), np.asarray(s1), atol=1e-4)
-        np.testing.assert_array_equal(np.asarray(q2), np.asarray(q1))
-        np.testing.assert_array_equal(np.asarray(e2), np.asarray(e1))
-
-
-def test_sw_pallas_banded_matches_scan():
-    # random junk pairs stress band edges (best paths drift off-diagonal)
-    rng = np.random.default_rng(106)
-    qn = rng.integers(0, 4, (64, 96)).astype(np.int32)
-    sn = rng.integers(0, 4, (64, 120)).astype(np.int32)
-    for i in range(0, 64, 2):
-        sn[i, :96] = qn[i]
-    s1, q1, e1 = swd.banded_sw_scores(qn, sn, band=64)
-    s2, q2, e2 = swd.sw_pallas(qn, sn, band=64)
-    np.testing.assert_allclose(np.asarray(s2), np.asarray(s1), atol=1e-4)
-    np.testing.assert_array_equal(np.asarray(q2), np.asarray(q1))
-    np.testing.assert_array_equal(np.asarray(e2), np.asarray(e1))
+@pytest.mark.parametrize("q,s,want", [
+    # one query motif, two equal-scoring subject copies on the same rows:
+    # the lowest band cell (leftmost subject copy) wins
+    ("ACGTTGCAAC", "ACGTTGCAAC" + "GGGGG" + "ACGTTGCAAC", (50.0, 10, 10)),
+    # two query copies, one subject copy: the earliest row wins
+    ("ACGTTGCAAC" + "GGGGG" + "ACGTTGCAAC", "ACGTTGCAAC", (50.0, 10, 10)),
+])
+def test_banded_scan_tie_breaking(q, s, want):
+    qc = swd.codes_batch([q], len(q))
+    sc = swd.codes_batch([s], len(s))
+    score, qe, se = swd.banded_sw_scores(qc, sc, band=64)
+    assert (float(score[0]), int(qe[0]), int(se[0])) == want

@@ -6,8 +6,7 @@ C++ exact walker below a seed count and to the device jump-table path
 (link-free jump walks + exact linked replay of link-touching walks) above
 it.  This tool times both strategies on a Pf-scale graph + real threaded
 links at several seed counts and prints one JSON line per point so the
-crossover is chosen from data; the measured artifact is committed as
-LINKBENCH_r04.json and _NATIVE_LINK_THRESHOLD cites it.
+crossover is chosen from data.
 
 Both timings EXCLUDE the one-time jump-table build/compile (reported
 separately): in the production pipeline the table build amortizes across

@@ -1,4 +1,4 @@
-"""Coverage-robustness sweep (round-2 verdict item 6): run the reads-mode
+"""Coverage-robustness sweep: run the reads-mode
 pipeline at 10/15/20/30x on the 0.6 Mbp cross and record ROI recall / venn.
 Writes SWEEP_r03.json at the repo root."""
 import json

@@ -24,7 +24,7 @@ BASELINE.json ≥80% scaling at 2+ hosts is its perf target):
       asserts bit-identical results against the launcher's oracles
 
 Usage: python tools/dryrun_multihost.py [--processes 2]
-Prints one JSON line with the results (committed as MULTIHOST_r03.json).
+Prints one JSON line with the results.
 """
 
 from __future__ import annotations
